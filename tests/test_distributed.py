@@ -143,12 +143,13 @@ def test_extraction_step_compiles_sharded(rng, mesh):
         tsn.flow.stacked_params,
         NamedSharding(mesh2, P("model")))
     ticks = jnp.asarray([0, 2, 4], jnp.int32)
+    # stack slots are positions into the pair list (all 5 pairs here)
     sidx = jnp.asarray(np.minimum(np.arange(3)[:, None] * 2
-                                  + np.arange(2)[None, :], 5), jnp.int32)
+                                  + np.arange(2)[None, :], 4), jnp.int32)
     rgb_emb, flow_emb = _extract_step(
         rgb_params, flow_params, frames, ticks, sidx,
         20.0, False, TVL1Params(n_scales=2, n_warps=1, n_iters=4),
-        (120, 96), 64, "float32",
+        (120, 96), 64, "float32", jnp.arange(5, dtype=jnp.int32),
     )
     assert rgb_emb.shape == (2, 4, 1024)
     assert np.isfinite(np.asarray(rgb_emb)).all()
@@ -172,7 +173,7 @@ def test_extractor_with_mesh(rng):
                            batch_clips=4, min_tail_seconds=1)
     ex = Extractor(tsn, cfg, warped=False,
                    tvl1=TVL1Params(n_scales=2, n_warps=1, n_iters=4),
-                   flow_impl="xla", mesh=mesh2)
+                   mesh=mesh2)
     frames = rng.integers(0, 255, (40, 64, 80, 3)).astype(np.uint8)
     sigs = gather_signatures(list(ex.extract_frames(frames)))
     nums = [n for s in sigs for n in s.clip_numbers]

@@ -116,12 +116,12 @@ def test_epe_oracle_flow_scores_zero():
 
 def test_epe_for_config_runs_on_cpu():
     """End-to-end EPE evaluation on a tiny corpus with a cheap schedule
-    (XLA path, CPU): returns finite numbers and a sane background EPE."""
+    (CPU): returns finite numbers and a sane background EPE."""
     from videoquery.kernels.tvl1 import TVL1Params
 
     clips, labels, truths = make_corpus(frames=5, seed=2, with_truth=True)
     sel = [i for i, l in enumerate(labels) if l in (0, 4)]  # fast-right, static
-    res = epe_for_config(clips[sel], [truths[i] for i in sel], "xla",
+    res = epe_for_config(clips[sel], [truths[i] for i in sel],
                          TVL1Params(n_scales=3, n_warps=2, n_iters=10), 2)
     assert np.isfinite(res["epe_mean"]) and np.isfinite(res["epe_bg"])
     assert res["epe_bg"] < 3.0  # static/translating background, compensated

@@ -155,7 +155,7 @@ def test_camera_zoom_compensation(rng):
     p = TVL1Params(n_scales=3, n_warps=3, n_iters=20)
     interior = (slice(None), slice(12, -12), slice(12, -12))
 
-    u, v = tvl1_warped_flow(img[None], i1[None], p, coarse_hw=(48, 64))
+    u, v = tvl1_warped_flow(img[None], i1[None], p)
     residual = jnp.sqrt(u**2 + v**2)[interior]
     ur, vr = tvl1_flow(img[None], i1[None], p)
     raw = jnp.sqrt(ur**2 + vr**2)[interior]

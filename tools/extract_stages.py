@@ -22,11 +22,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tools.flow_bench import timeit
+from videoquery.core.profiling import timeit
 from videoquery.nn.tsn import TwoStreamTSN
 from videoquery.pipeline.extract import (PRODUCTION_TVL1, _ensemble_embed,
-                                         _extract_step, _pair_flow,
-                                         default_flow_impl)
+                                         _extract_step, _pair_flow)
 from videoquery.pipeline.preprocess import preprocess_flow, preprocess_rgb
 from videoquery.pipeline.sampling import (flow_pair_plan, flow_warm_plan,
                                           frame_ticks)
@@ -73,8 +72,6 @@ def main():
     args = ap.parse_args()
     gray_mm = not args.gray_exact
 
-    impl = default_flow_impl()
-    assert impl == "pallas", f"stage profile targets the TPU path, got {impl}"
     frames_u8, tick_idx, sidx, pidx, warm, tsn = build(
         batch=args.batch, res_div=args.res_div, warm_group=args.warm_group,
         dtype=args.dtype)
@@ -122,8 +119,8 @@ def main():
     def s_full(fr):
         return _extract_step(
             tsn.rgb.stacked_params, tsn.flow.stacked_params, fr, tick_idx,
-            sidx, 20.0, True, tvl1, (340, 256), 224, args.dtype, impl,
-            args.res_div, flow_pair_idx=pidx, flow_warm_plan=warm,
+            sidx, 20.0, True, tvl1, (340, 256), 224, args.dtype, pidx,
+            args.res_div, flow_warm_plan=warm,
             flow_warm_camera=cam, flow_gray_matmul=gray_mm)
 
     reps = args.reps

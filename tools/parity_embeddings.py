@@ -13,7 +13,7 @@ available, this is the one command that closes the parity loop:
       --splits 1 2 3
 
 It (1) converts every caffemodel (V1 or modern layout) to npz, (2) runs the
-TPU extraction pipeline on each video at the reference geometry (340x256
+extraction pipeline on each video at the reference geometry (340x256
 resize, 25 ticks, 10s/15fps clips), (3) diffs per-clip embeddings against
 the fixture CSVs and prints a per-(video, split, stream) tolerance report
 (cosine + relative L2), plus top-k rank agreement.

@@ -20,8 +20,7 @@ This tool measures it three ways at exact production geometry:
                            XLA's scheduler can extract shows up here.
 
 Steady-state ms/batch for each, so the answer is a number, not an
-argument. Written for the round-4 "close 56.9 -> 86" work item; results
-recorded in docs/TUNING.md.
+argument; results are recorded in PERF.md.
 """
 from __future__ import annotations
 
@@ -36,11 +35,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tools.flow_bench import sync
+from videoquery.core.profiling import sync
 from videoquery.nn.tsn import TwoStreamTSN
 from videoquery.pipeline.extract import (PRODUCTION_TVL1, _ensemble_embed,
                                          _extract_step, _pair_flow,
-                                         _flow_gray_grid, default_flow_impl)
+                                         _flow_gray_grid)
 from videoquery.pipeline.preprocess import preprocess_flow, preprocess_rgb
 from videoquery.pipeline.sampling import (flow_pair_plan, flow_warm_plan,
                                           frame_ticks)
@@ -58,8 +57,6 @@ def main():
     from videoquery.core.jaxsetup import setup_jax
 
     setup_jax()
-    impl = default_flow_impl()
-    assert impl == "pallas", f"overlap probe targets the TPU path, got {impl}"
 
     b, f, h, w = args.batch, 150, 256, 340
     rng = np.random.default_rng(0)
@@ -114,8 +111,8 @@ def main():
     def fused(fr):
         return _extract_step(
             tsn.rgb.stacked_params, tsn.flow.stacked_params, fr, tick_idx,
-            sidx, 20.0, True, tvl1, (340, 256), 224, args.dtype, impl,
-            args.res_div, flow_pair_idx=pidx, flow_warm_plan=warm,
+            sidx, 20.0, True, tvl1, (340, 256), 224, args.dtype, pidx,
+            args.res_div, flow_warm_plan=warm,
             flow_warm_camera="key")
 
     reps = args.reps

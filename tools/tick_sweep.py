@@ -9,7 +9,7 @@ clips (150 frames), swept over num_ticks {25, 15, 10, 5}, against the
 measured device throughput at each tick count (bench.bench_extraction).
 
 Run on the chip:  python tools/tick_sweep.py [--seeds 0 1 2] [--scale 1]
-Publishes the curve for docs/TUNING.md; 25 stays the shipping default.
+Publishes the curve for PERF.md; 25 stays the shipping default.
 """
 from __future__ import annotations
 
@@ -29,20 +29,18 @@ def embeddings_for_ticks(clips, num_ticks, tsn, chunk=4):
     import jax.numpy as jnp
 
     from videoquery.core.config import ExtractionConfig
-    from videoquery.pipeline.extract import (PRODUCTION_TVL1, _extract_step,
-                                             default_flow_impl)
+    from videoquery.pipeline.extract import PRODUCTION_TVL1, _extract_step
     from videoquery.pipeline.sampling import (flow_pair_plan, flow_warm_plan,
                                               frame_ticks)
 
     c, f = clips.shape[:2]
-    impl = default_flow_impl()
     ticks = jnp.asarray(frame_ticks(f, num_ticks, 1) - 1, jnp.int32)
     pair_idx, stack_pos = flow_pair_plan(f, num_ticks, 5)
     sidx = jnp.asarray(stack_pos, jnp.int32)
     pidx = jnp.asarray(pair_idx, jnp.int32)
     wg = ExtractionConfig().flow_warm_group
     warm = None
-    if impl == "pallas" and wg > 1:
+    if wg > 1:
         kp, wp, ws = flow_warm_plan(pair_idx, wg)
         if wp.size:
             warm = (jnp.asarray(kp), jnp.asarray(wp), jnp.asarray(ws))
@@ -55,8 +53,7 @@ def embeddings_for_ticks(clips, num_ticks, tsn, chunk=4):
         rgb, flow = _extract_step(
             tsn.rgb.stacked_params, tsn.flow.stacked_params,
             jnp.asarray(part), ticks, sidx, 20.0, True, PRODUCTION_TVL1,
-            (340, 256), 224, "float32", impl, 2,
-            flow_pair_idx=pidx if impl == "pallas" else None,
+            (340, 256), 224, "float32", pidx, 2,
             flow_warm_plan=warm,
             flow_warm_camera=ExtractionConfig().flow_warm_camera,
         )

@@ -1,12 +1,12 @@
-"""videoquery — a TPU-native content-based video similarity search framework.
+"""videoquery — a content-based video similarity search framework on the GPU.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 PARC-projects/video-query-algorithms (see SURVEY.md for the blueprint):
 
 - ``videoquery.pipeline``  — fused two-stream (RGB + warped TV-L1 optical flow)
   feature extraction with batched BN-Inception (TSN) ensembles.
 - ``videoquery.nn``        — BN-Inception / TSN models in pure JAX.
-- ``videoquery.kernels``   — Pallas TPU kernels (TV-L1 flow, fused similarity).
+- ``videoquery.kernels``   — warped TV-L1 optical flow and camera-motion fits.
 - ``videoquery.index``     — sharded [N, 1024] embedding store, CSV-compatible
   with the reference feature format (calcSig_wOF.py:116-134).
 - ``videoquery.search``    — target estimation, ensemble similarity + scoring,

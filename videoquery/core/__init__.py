@@ -5,7 +5,9 @@ from videoquery.core.config import (
     SearchConfig,
     compute_eps,
 )
-from videoquery.core.meshes import make_mesh, data_sharding, replicated_sharding
+
+# meshes (jax) is not re-exported: host-side worker processes import
+# videoquery.core.config and must not pay for, or risk, a jax import
 
 __all__ = [
     "BrokerConfig",
@@ -13,7 +15,4 @@ __all__ = [
     "HyperParams",
     "SearchConfig",
     "compute_eps",
-    "make_mesh",
-    "data_sharding",
-    "replicated_sharding",
 ]

@@ -2,7 +2,7 @@
 
 The reference scales by share-nothing multiprocessing over GPUs
 (calcSig_wOF.py:44-56,204-210; build_wof_clips.py:175-184) plus an unused
-MPI Caffe build (features_GPU_compute/Dockerfile:37-53). The TPU-native
+MPI Caffe build (features_GPU_compute/Dockerfile:37-53). Here the
 equivalent is a single SPMD program over a jax.sharding.Mesh:
 
 - axis "data"  — clips / index rows (data parallelism; also how the
@@ -11,7 +11,10 @@ equivalent is a single SPMD program over a jax.sharding.Mesh:
   backbone is used, tensor parallelism.
 
 Collectives (psum of ensemble averages, all-gather of per-shard top-k)
-are inserted by XLA from the shardings and ride ICI.
+are inserted by XLA from the shardings and run as NCCL collectives over
+NVLink. Every card of a host reaches every other at the same rate, so the
+mesh shape follows the algorithm alone (a plain reshape of the device
+list).
 """
 
 from __future__ import annotations
@@ -61,10 +64,11 @@ def pad_to_multiple(n: int, multiple: int) -> int:
 def initialize_multihost(coordinator_address: str | None = None,
                          num_processes: int | None = None,
                          process_id: int | None = None) -> None:
-    """Multi-host bring-up: jax.distributed over ICI/DCN — the TPU-native
-    replacement for the reference's (unused) MPI Caffe build
-    (features_GPU_compute/Dockerfile:37-53; SURVEY.md §5.8). On Cloud TPU
-    pods the arguments are auto-detected from the environment."""
+    """Multi-process bring-up: jax.distributed — the replacement for the
+    reference's (unused) MPI Caffe build
+    (features_GPU_compute/Dockerfile:37-53; SURVEY.md §5.8). Nothing
+    detects a GPU cluster automatically: pass coordinator_address
+    ("host:port" of process 0), num_processes and process_id."""
     import jax
 
     kwargs = {}

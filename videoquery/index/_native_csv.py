@@ -1,7 +1,9 @@
 """ctypes bridge to the native CSV parser (native/vqio.cc).
 
-Builds the shared library on first use if g++ is available; raises
-ImportError otherwise so csvio falls back to the pure-Python parser."""
+Builds the shared library from the committed source on first use, into
+native/ (gitignored), if g++ is available; raises ImportError otherwise
+(no compiler, read-only checkout) so csvio falls back to the pure-Python
+parser."""
 
 from __future__ import annotations
 
@@ -15,7 +17,6 @@ import numpy as np
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRC = os.path.join(_REPO_ROOT, "native", "vqio.cc")
 _LIB = os.path.join(_REPO_ROOT, "native", "libvqio.so")
-_LIB_FALLBACK = os.path.expanduser("~/.cache/videoquery/libvqio.so")
 _lock = threading.Lock()
 _lib = None
 _failed = False  # a failed build/load is cached: fall back to Python once,
@@ -65,18 +66,14 @@ def _load():
 def _try_build() -> str:
     if not os.path.exists(_SRC):
         raise ImportError("native/vqio.cc not found")
-    for lib_path in (_LIB, _LIB_FALLBACK):
-        if (os.path.exists(lib_path)
-                and os.path.getmtime(lib_path) >= os.path.getmtime(_SRC)):
-            return lib_path
-    errors = []
-    for lib_path in (_LIB, _LIB_FALLBACK):  # source tree may be read-only
-        try:
-            _build(lib_path)
-            return lib_path
-        except (OSError, subprocess.CalledProcessError) as exc:
-            errors.append(f"{lib_path}: {exc}")
-    raise ImportError("; ".join(errors))
+    if (os.path.exists(_LIB)
+            and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
+        return _LIB
+    try:
+        _build(_LIB)
+    except (OSError, subprocess.CalledProcessError) as exc:
+        raise ImportError(f"{_LIB}: {exc}") from exc
+    return _LIB
 
 
 def parse(path: str, n_threads: int | None = None):

@@ -5,7 +5,7 @@ homography from SURF matches + flow correspondences and warping the second
 frame before the final TV-L1 pass (invoked at build_wof_clips.py:70-73; the
 implementation lives in the external dense_flow C++/CUDA project).
 
-TPU-native replacement: fit a global affine motion model to a coarse flow
+Here: fit a global affine motion model to a coarse flow
 field by iteratively reweighted least squares (robust to foreground
 outliers). An affine fit on dense flow is the compiler-friendly equivalent —
 no feature detection, no RANSAC branching, one small 6x6 solve — and for
@@ -16,6 +16,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+# the LK normal equations are tiny reductions: keep them in full f32 on
+# every backend (the GPU would otherwise round the products to TF32)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def estimate_affine(
@@ -94,9 +98,11 @@ def global_translation(
     max_shift: int = 12,
 ) -> jax.Array:
     """Integer global translation per pair via zero-mean cross-correlation,
-    computed as ONE depthwise convolution on the MXU (robust to any pan size
+    computed as ONE depthwise convolution (robust to any pan size
     up to max_shift at this resolution — the piece iterative TV-L1 struggles
-    with). Returns i32 [N, 2] (dx, dy): c1 shifted by -t aligns with c0."""
+    with). Returns i32 [N, 2] (dx, dy): c1 shifted by -t aligns with c0.
+    Full f32 precision: the argmax must not depend on whether the backend
+    would otherwise round the products (TF32 on the GPU)."""
     n, h, w = c0.shape
     a = c0 - c0.mean(axis=(1, 2), keepdims=True)
     b = c1 - c1.mean(axis=(1, 2), keepdims=True)
@@ -111,6 +117,7 @@ def global_translation(
         feature_group_count=n,
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
         preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     )[0]                                                  # [N, 2m+1, 2m+1]
     flat = corr.reshape(n, -1)
     idx = jnp.argmax(flat, axis=1)
@@ -173,8 +180,9 @@ def lk_affine(
         thresh = huber_delta * jnp.median(absr) + 1e-6
         wgt = jnp.minimum(1.0, thresh / (absr + 1e-8))
         sw = sd * wgt
-        hess = jnp.einsum("ihw,jhw->ij", sw, sd) + 1e-6 * jnp.eye(6)
-        b = jnp.einsum("ihw,hw->i", sw, r)
+        hess = jnp.einsum("ihw,jhw->ij", sw, sd,
+                          precision=_HIGHEST) + 1e-6 * jnp.eye(6)
+        b = jnp.einsum("ihw,hw->i", sw, r, precision=_HIGHEST)
         # residual r = c1(x+u) - c0 ~ r + sd . delta = 0 -> delta = -H^-1 b
         return p - jnp.linalg.solve(hess, b), None
 
@@ -262,8 +270,9 @@ def lk_homography_batch(
                   + 1e-6)
         wgt = jnp.minimum(1.0, thresh / (absr + 1e-8))
         sw = sd * wgt[:, None]
-        hess = jnp.einsum("nihw,njhw->nij", sw, sd) + 1e-6 * jnp.eye(8)
-        b = jnp.einsum("nihw,nhw->ni", sw, r)
+        hess = jnp.einsum("nihw,njhw->nij", sw, sd,
+                          precision=_HIGHEST) + 1e-6 * jnp.eye(8)
+        b = jnp.einsum("nihw,nhw->ni", sw, r, precision=_HIGHEST)
         delta = jnp.linalg.solve(hess, b[..., None])[..., 0]
         return p - delta, None
 
@@ -311,9 +320,8 @@ def lk_affine_batch(
     n_iters: int = 8,
     huber_delta: float = 3.0,  # x median residual (adaptive)
 ) -> jax.Array:
-    """Batched lk_affine: returns [N, 2, 3] per-pixel-coords affines. Takes
-    a BATCHED warp_fn so the TPU path can plug in the gather-free Pallas
-    window warp (per-pair gathers are ~50 ns/index on TPU)."""
+    """Batched lk_affine: returns [N, 2, 3] per-pixel-coords affines.
+    warp_fn (batched) defaults to the exact bilinear gather."""
     n, h, w = c0.shape
     ys = jax.lax.broadcasted_iota(jnp.float32, (h, w), 0)
     xs = jax.lax.broadcasted_iota(jnp.float32, (h, w), 1)
@@ -344,8 +352,9 @@ def lk_affine_batch(
                   + 1e-6)
         wgt = jnp.minimum(1.0, thresh / (absr + 1e-8))
         sw = sd * wgt[:, None]
-        hess = jnp.einsum("nihw,njhw->nij", sw, sd) + 1e-6 * jnp.eye(6)
-        b = jnp.einsum("nihw,nhw->ni", sw, r)
+        hess = jnp.einsum("nihw,njhw->nij", sw, sd,
+                          precision=_HIGHEST) + 1e-6 * jnp.eye(6)
+        b = jnp.einsum("nihw,nhw->ni", sw, r, precision=_HIGHEST)
         delta = jnp.linalg.solve(hess, b[..., None])[..., 0]
         return p - delta, None
 

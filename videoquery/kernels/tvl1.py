@@ -1,18 +1,23 @@
 """Pyramidal TV-L1 optical flow (Zach et al. 2007) as a batched JAX program.
 
-TPU-native replacement for dense_flow's `extract_warp_gpu` CUDA binary
+The GPU replacement for dense_flow's `extract_warp_gpu` CUDA binary
 (shelled at reference build_wof_clips.py:70-73 with bound 20, warped TV-L1).
-The primal-dual iterations are pure stencil math — elementwise ops + 4-point
-neighbor differences — which XLA fuses into a handful of kernels per
-iteration; frames are batched on the leading axis so the whole clip's flow
-computes as one program. (A hand-tiled Pallas variant of the inner loop is
-the planned next optimization; this module defines the semantics and the
-performance baseline.)
+It has the same shape as dense_flow's OpenCV CUDA solver: I1 and its
+gradients are bilinearly sampled once per warp (exact gathers, no
+displacement clamp), then each primal-dual iteration is pure stencil math —
+elementwise ops + 4-point neighbor differences — which XLA fuses into a
+handful of kernels per iteration. Frame pairs are batched on the leading
+axis so a whole clip batch's flow computes as one program.
 
 The warped variant estimates global camera motion (videoquery.kernels.motion)
-from a coarse flow pass, warps the second frame to cancel it, and reruns
-TV-L1 — the same two-pass structure dense_flow uses with its
+on a coarse grid, warps the second frame to cancel it, and runs TV-L1 on
+the compensated pair — the same two-pass structure dense_flow uses with its
 homography-of-SURF-matches estimate.
+
+Warm start (the production schedule, pipeline/extract.py): a pair next to
+an already-solved keyframe pair refines the key's flow at the finest
+pyramid level only (tvl1_flow_warm), and may reuse or refine the key's
+camera instead of estimating its own (tvl1_warped_flow_warm).
 
 Default parameters follow OpenCV's DualTVL1 (tau 0.25, theta 0.3,
 5 scales, 5 warps, 30 inner iterations), which is what dense_flow wraps;
@@ -45,7 +50,7 @@ class TVL1Params:
     # shift on realistic-contrast textures (a pure 3 px roll solved to
     # 0.46 px). 0.15 * 255 = 38.25 reproduces OpenCV's balance exactly:
     # rigid shifts 1-8 px now solve to <=0.14 px mean error at the
-    # production schedule (tools/flow_quality.py corpus v3; TUNING.md).
+    # production schedule (tools/flow_quality.py corpus v3).
     lambda_: float = 38.25
     theta: float = 0.3          # tightness
     n_scales: int = 5
@@ -53,14 +58,13 @@ class TVL1Params:
     n_iters: int = 30           # primal-dual iterations per warp
     scale_step: float = 0.5
     grad_eps: float = 1e-6
-    # Warp passes at the finest 2 pyramid levels (None = n_warps). Fine-level
-    # warps dominate cost quadratically in the window size while coarse
-    # levels have already converged the large motion; 2 fine warps is ~2.3x
-    # faster at equal recovered-flow quality on the Pallas path.
+    # Warp passes at the finest 2 pyramid levels (None = n_warps). Fine
+    # levels hold 4x/16x the pixels of the coarse ones while the coarse
+    # levels have already converged the large motion.
     fine_warps: int | None = None
     # Primal-dual iterations at the finest 2 pyramid levels (None = n_iters).
     # Fine levels start from an already-converged upsampled coarse flow, so
-    # they need fewer iterations; the inner loop is the VPU-bound hot path.
+    # they need fewer iterations; the inner loop is the hot path.
     fine_iters: int | None = None
     # Primal-dual iterations for a WARM-started pair's single refinement
     # warp (None = fine_iters): the init flow already carries a converged
@@ -72,42 +76,19 @@ class TVL1Params:
     # 1 ships; 2 re-linearizes once more — sweep with
     # tools/flow_quality.py --warm_iters under the corrected lambda.
     warm_warps: int = 1
-    # Pallas path only: factorize the bilinear window warp into a vertical
-    # then a horizontal pass (2*nwin roll terms instead of nwin^2). Exact
-    # where the flow is locally constant over the window; the TV prior keeps
-    # it that way almost everywhere (validated at retrieval level by
-    # tools/flow_quality.py). The XLA path always uses exact gathers.
-    separable_warp: bool = True
     # Coarse grid for the camera-motion estimation pass of the warped
-    # variant. The handful of global parameters need far fewer samples than the
-    # flow grid; (48, 64) scored >= (64, 96) on the 3-seed production-scale
-    # retrieval gate while (32, 48) cliffs (tools/flow_quality.py
-    # --res_sweep) — heights below ~48 under-resolve the pan classes.
+    # variant. The handful of global parameters need far fewer samples than
+    # the flow grid; (48, 64) scored >= (64, 96) on the 3-seed
+    # production-scale retrieval gate while (32, 48) cliffs
+    # (tools/flow_quality.py --res_sweep) — heights below ~48
+    # under-resolve the pan classes.
     coarse_hw: tuple[int, int] = (48, 64)
-    # Fast-motion escalation (Pallas pair path): pairs whose solved flow
-    # saturates the finest-level clamp (|u| or |v| near max_disp) are
-    # re-solved in a second batched dispatch with a DOUBLED window at every
-    # pyramid level — the top `rescue_frac` fraction of pairs, under a
-    # lax.cond so an ordinary corpus (nothing saturated) pays only the
-    # per-pair peak reduction. 0 disables. The ±16 native-px ceiling this
-    # lifts was the measured EPE floor on the two >10 px/frame corpus
-    # classes (docs/TUNING.md res-sweep; VERDICT r3 #6).
-    rescue_frac: float = 0.0
-    # trigger: per-pair pooled-max |flow| >= rescue_trigger * max_disp
-    rescue_trigger: float = 0.9
     # Camera-motion model for the warped variant: "affine" (6-param LK fit;
     # pan + zoom + rotation/shear) or "homography" (8 params — adds the two
     # perspective columns, matching dense_flow's SURF+RANSAC homography
     # model, build_wof_clips.py:70-73). Gate with tools/flow_quality.py's
     # perspective classes before switching production.
     camera_model: str = "affine"
-    # Gradient linearization source (Pallas separable path only):
-    # "image" (default) warps I1, I1x, I1y separately — the classical
-    # TV-L1 linearization (OpenCV/IPOL); "warped" warps only I1 and takes
-    # centered differences of the warped image — 1/3 the rolls in the
-    # window loops, equal up to O(|du/dx|) where the TV prior keeps flow
-    # smooth (retrieval-validated before enabling in production).
-    grad_source: str = "image"
 
     def warps_at_level(self, level: int) -> int:
         if self.fine_warps is not None and level < 2:
@@ -225,16 +206,31 @@ def _resize2(img: jax.Array, hw: tuple[int, int]) -> jax.Array:
     return jax.image.resize(img, hw, method="linear")
 
 
-def _tvl1_single(I0: jax.Array, I1: jax.Array, p: TVL1Params):
-    """Full pyramidal flow for one [H, W] pair; images scaled to [0, 1]."""
+def _tvl1_single(I0: jax.Array, I1: jax.Array, p: TVL1Params,
+                 u0: jax.Array | None = None, v0: jax.Array | None = None,
+                 levels: int | None = None):
+    """Pyramidal flow for one [H, W] pair; images scaled to [0, 1].
+
+    Cold (u0 None): the whole pyramid, from zero flow at the coarsest
+    level. Warm: only the finest `levels` levels, starting from (u0, v0)
+    given at full resolution in full-resolution pixels."""
     shapes = _pyramid_shapes(*I0.shape, p)
+    if levels is not None:
+        shapes = shapes[:levels]
     pyr0 = [I0] + [None] * (len(shapes) - 1)
     pyr1 = [I1] + [None] * (len(shapes) - 1)
     for i in range(1, len(shapes)):
         pyr0[i] = _resize2(pyr0[i - 1], shapes[i])
         pyr1[i] = _resize2(pyr1[i - 1], shapes[i])
-    u = jnp.zeros(shapes[-1], jnp.float32)
-    v = jnp.zeros(shapes[-1], jnp.float32)
+    if u0 is None:
+        u = jnp.zeros(shapes[-1], jnp.float32)
+        v = jnp.zeros(shapes[-1], jnp.float32)
+    elif len(shapes) == 1:
+        u, v = u0, v0
+    else:
+        scale = p.scale_step ** (len(shapes) - 1)
+        u = _resize2(u0, shapes[-1]) * scale
+        v = _resize2(v0, shapes[-1]) * scale
     for i in reversed(range(len(shapes))):
         u, v = _tvl1_level(pyr0[i], pyr1[i], u, v, p.at_level(i))
         if i > 0:
@@ -254,63 +250,161 @@ def tvl1_flow(
     return jax.vmap(lambda a, b: _tvl1_single(a, b, params))(I0, I1)
 
 
-@functools.partial(jax.jit, static_argnames=("params", "coarse_hw"))
+@functools.partial(jax.jit, static_argnames=("params", "levels"))
+def tvl1_flow_warm(
+    I0: jax.Array,  # [B, H, W] grayscale in [0, 1]
+    I1: jax.Array,
+    u0: jax.Array,  # [B, H, W] initial flow (e.g. a neighbor pair's)
+    v0: jax.Array,
+    params: TVL1Params = TVL1Params(),
+    levels: int = 1,
+) -> tuple[jax.Array, jax.Array]:
+    """Warm-started TV-L1: refine an initial flow running only the finest
+    `levels` pyramid levels. Consecutive pairs have highly correlated flow,
+    so the coarse pyramid that exists to recover LARGE motion from zero is
+    redundant when initialized from a neighbor's solution."""
+    return jax.vmap(lambda a, b, c, d: _tvl1_single(a, b, params, c, d,
+                                                    levels))(I0, I1, u0, v0)
+
+
+def _resize_batch(img: jax.Array, hw: tuple[int, int]) -> jax.Array:
+    return jax.image.resize(img, img.shape[:-2] + tuple(hw), method="linear")
+
+
+def _gather_warp(img: jax.Array, u: jax.Array, v: jax.Array) -> jax.Array:
+    """Batched exact bilinear warp: out[n](y, x) = img[n](y + v, x + u)."""
+    ys, xs = _grid(*img.shape[-2:])
+    return jax.vmap(lambda im, uu, vv: bilinear_sample(im, ys + vv, xs + uu))(
+        img, u, v)
+
+
+def estimate_camera(I0: jax.Array, I1: jax.Array, p: TVL1Params) -> jax.Array:
+    """Per-pair global camera motion on the p.coarse_hw grid (apply with
+    apply_camera):
+    p.camera_model == "affine"     -> A [N, 2, 3] displacement affine in
+                                      I0's pixel coords;
+    p.camera_model == "homography" -> Hn [N, 3, 3] normalized-coords
+                                      homography (8 params — dense_flow's
+                                      model class, build_wof_clips.py:70-73).
+
+    Integer translation from one cross-correlation (robust to pans of ANY
+    size up to the correlation window) + direct parametric (Lucas-Kanade)
+    refinement on the translation-compensated coarse pair. A
+    TV-L1-flow-then-affine-fit estimator was abandoned: the TV prior
+    FLATTENS divergent fields, so a camera zoom came back at <10% magnitude
+    and stayed uncompensated (dense_flow avoids the same trap by fitting
+    its homography to feature matches, not regularized flow)."""
+    from videoquery.kernels.motion import (global_translation,
+                                           homography_translate,
+                                           lk_affine_batch,
+                                           lk_homography_batch)
+
+    ch, cw = p.coarse_hw
+    c0 = _resize_batch(I0, p.coarse_hw)
+    c1 = _resize_batch(I1, p.coarse_hw)
+    t = global_translation(c0, c1, max_shift=12)          # i32 [N, 2] (u, v)
+
+    def roll_one(im, ti):
+        # compensate: sample c1 at x + t  ==  roll contents left/up by t
+        return jnp.roll(jnp.roll(im, -ti[1], axis=0), -ti[0], axis=1)
+
+    c1t = jax.vmap(roll_one)(c1, t)
+    tx = t[:, 0].astype(jnp.float32)
+    ty = t[:, 1].astype(jnp.float32)
+    if p.camera_model == "homography":
+        Hn = lk_homography_batch(c0, c1t, n_iters=6)
+        # fold the integer pre-translation in (normalized coords are
+        # resolution-independent: Hn applies on ANY grid of the same FoV)
+        return homography_translate(Hn, tx, ty, cw, ch)
+    A = lk_affine_batch(c0, c1t, n_iters=6)
+    # add the integer translation, scale VALUES (coarse px -> native px per
+    # axis), then convert the fit's coarse COORDS to native coords
+    A = A.at[:, 0, 2].add(tx).at[:, 1, 2].add(ty)
+    sx = I0.shape[2] / cw
+    sy = I0.shape[1] / ch
+    A = A * jnp.asarray([sx, sy])[:, None]
+    return affine_to_native_coords(A, sx, sy)
+
+
+def refine_camera(I0: jax.Array, I1: jax.Array, p: TVL1Params,
+                  Hn0: jax.Array, n_iters: int = 3) -> jax.Array:
+    """Refine a NEIGHBOR pair's camera homography Hn0 [N, 3, 3] on this
+    pair: no translation pre-pass, LK warm-started at Hn0's parameters —
+    the middle ground between reusing the key's camera verbatim (stale on
+    handheld jitter) and a full per-pair estimate (translation correlation
+    + 6 LK iterations). The LK warp is an exact gather, so any pan size
+    is reachable."""
+    from videoquery.kernels.motion import (homography_params,
+                                           lk_homography_batch)
+
+    c0 = _resize_batch(I0, p.coarse_hw)
+    c1 = _resize_batch(I1, p.coarse_hw)
+    return lk_homography_batch(c0, c1, n_iters=n_iters,
+                               p0=homography_params(Hn0))
+
+
+def apply_camera(I1: jax.Array, A: jax.Array) -> jax.Array:
+    """Warp I1 [N, H, W] to cancel the camera motion: A [N, 2, 3] =
+    displacement affine in I1's coords; [N, 3, 3] = normalized-coords
+    homography."""
+    h, w = I1.shape[1:]
+    if A.shape[-2] == 3:
+        from videoquery.kernels.motion import homography_displacement
+
+        du, dv = homography_displacement(A, h, w)
+        return _gather_warp(I1, du, dv)
+    return jax.vmap(lambda im, a: warp_affine(im, affine_to_warp(a, h, w)))(
+        I1, A)
+
+
+@functools.partial(jax.jit, static_argnames=("params",))
+def tvl1_warped_flow_cam(
+    I0: jax.Array,  # [B, H, W] grayscale in [0, 1]
+    I1: jax.Array,
+    params: TVL1Params = TVL1Params(),
+) -> tuple[jax.Array, jax.Array, jax.Array]:
+    """tvl1_warped_flow that also returns the per-pair camera estimate
+    (estimate_camera), so warm-started neighbor pairs can reuse it."""
+    A = estimate_camera(I0, I1, params)
+    u, v = tvl1_flow(I0, apply_camera(I1, A), params)
+    return u, v, A
+
+
+@functools.partial(jax.jit, static_argnames=("params",))
 def tvl1_warped_flow(
     I0: jax.Array,  # [B, H, W] grayscale in [0, 1]
     I1: jax.Array,
     params: TVL1Params = TVL1Params(),
-    coarse_hw: tuple[int, int] = (64, 96),
 ) -> tuple[jax.Array, jax.Array]:
     """Warped TV-L1: cancel global camera motion, then compute flow — the
-    two-pass structure of dense_flow's extract_warp_gpu.
+    two-pass structure of dense_flow's extract_warp_gpu. The returned flow
+    is the residual (foreground) motion, as in the reference."""
+    u, v, _ = tvl1_warped_flow_cam(I0, I1, params)
+    return u, v
 
-    Camera motion = integer translation (one MXU cross-correlation, any pan
-    size) + direct parametric (Lucas-Kanade) affine refinement on the
-    translation-compensated coarse pair. A TV-L1-flow-then-affine-fit
-    estimator was abandoned: the TV prior FLATTENS divergent fields, so a
-    camera zoom came back at <10% magnitude and stayed uncompensated
-    (dense_flow avoids the same trap by fitting its homography to feature
-    matches, not regularized flow). The returned flow is the residual
-    (foreground) motion, as in the reference."""
-    from videoquery.kernels.motion import global_translation, lk_affine_batch
 
-    c0 = jax.vmap(lambda i: _resize2(i, coarse_hw))(I0)
-    c1 = jax.vmap(lambda i: _resize2(i, coarse_hw))(I1)
-    t = global_translation(c0, c1, max_shift=12)
-
-    def roll_one(im, ti):
-        return jnp.roll(jnp.roll(im, -ti[1], axis=0), -ti[0], axis=1)
-
-    c1t = jax.vmap(roll_one)(c1, t)
-    if params.camera_model == "homography":
-        from videoquery.kernels.motion import (homography_displacement,
-                                               homography_translate,
-                                               lk_homography_batch)
-
-        Hn = lk_homography_batch(c0, c1t, n_iters=6)
-        Hn = homography_translate(Hn, t[:, 0].astype(jnp.float32),
-                                  t[:, 1].astype(jnp.float32),
-                                  coarse_hw[1], coarse_hw[0])
-        h, w = I0.shape[1:]
-        du, dv = homography_displacement(Hn, h, w)
-        ys = jax.lax.broadcasted_iota(jnp.float32, (h, w), 0)
-        xs = jax.lax.broadcasted_iota(jnp.float32, (h, w), 1)
-
-        def one_h(i0, i1, u, v):
-            i1w = bilinear_sample(i1, ys + v, xs + u)
-            return _tvl1_single(i0, i1w, params)
-
-        return jax.vmap(one_h)(I0, I1, du, dv)
-    A = lk_affine_batch(c0, c1t, n_iters=6)
-    A = A.at[:, 0, 2].add(t[:, 0].astype(jnp.float32))
-    A = A.at[:, 1, 2].add(t[:, 1].astype(jnp.float32))
-    sx = I0.shape[2] / coarse_hw[1]
-    sy = I0.shape[1] / coarse_hw[0]
-    A = A * jnp.asarray([sx, sy])[:, None]   # coarse-px -> native-px values
-    A = affine_to_native_coords(A, sx, sy)   # coarse coords -> native coords
-
-    def one(i0, i1, a):
-        i1w = warp_affine(i1, affine_to_warp(a, *i0.shape))
-        return _tvl1_single(i0, i1w, params)
-
-    return jax.vmap(one)(I0, I1, A)
+@functools.partial(jax.jit,
+                   static_argnames=("params", "levels", "cam_refine_iters"))
+def tvl1_warped_flow_warm(
+    I0: jax.Array,
+    I1: jax.Array,
+    u0: jax.Array,
+    v0: jax.Array,
+    params: TVL1Params = TVL1Params(),
+    levels: int = 1,
+    A: jax.Array | None = None,
+    cam_refine_iters: int = 0,
+) -> tuple[jax.Array, jax.Array]:
+    """Warm-started warped variant. By default each pair still gets its OWN
+    camera estimate (camera motion changes per pair); only the
+    residual-flow solve is warm-started from the neighbor's residual.
+    Passing A (the keyframe pair's estimate) skips the estimation and
+    reuses it; with cam_refine_iters > 0 and a homography A, the key's
+    estimate is instead REFINED on this pair with that many warm-started
+    LK iterations (ExtractionConfig.flow_warm_camera="init")."""
+    if A is None:
+        A = estimate_camera(I0, I1, params)
+    elif cam_refine_iters > 0 and A.shape[-2] == 3:
+        A = refine_camera(I0, I1, params, A, n_iters=cam_refine_iters)
+    return tvl1_flow_warm(I0, apply_camera(I1, A), u0, v0, params,
+                          levels=levels)

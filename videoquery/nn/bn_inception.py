@@ -1,4 +1,4 @@
-"""BN-Inception (TSN backbone) in pure functional JAX — TPU-native NHWC.
+"""BN-Inception (TSN backbone) in pure functional JAX — NHWC for cuDNN.
 
 Architecture transcribed from the reference deploy definitions
 (src/features_GPU_compute/models/ucf101/tsn_bn_inception_{rgb,flow}_deploy
@@ -6,7 +6,7 @@ Architecture transcribed from the reference deploy definitions
 dropout+fc-action :741-748). RGB input is 3-channel, flow input is 10
 channels = 5 stacked (x, y) flow pairs (flow prototxt :4-8).
 
-Design decisions (TPU-first, not a Caffe translation):
+Design decisions (accelerator-first, not a Caffe translation):
 
 - NHWC layout, conv via lax.conv_general_dilated; bfloat16 activations with
   float32 accumulation by default — the whole 69-conv network is one XLA
@@ -200,11 +200,13 @@ def _conv(params: Mapping, name: str, x: jax.Array, k: int, pad: int,
 
 
 def _stem_s2d(params: Mapping, x: jax.Array) -> jax.Array:
-    """conv1/7x7_s2 as a space-to-depth 4x4/s1 conv — bit-identical math,
-    ~MXU-friendly shapes. A 3- or 10-channel 7x7 stride-2 conv is the
-    slowest layer on TPU (the MXU pads tiny input channels to a full tile
-    at 224x224 resolution); reshaping 2x2 pixel blocks into channels
-    quarters the spatial positions and 4x's the contraction depth.
+    """conv1/7x7_s2 as a space-to-depth 4x4/s1 conv — the same math (up to
+    summation order). A 3- or 10-channel 7x7 stride-2 conv feeds the
+    matrix units a contraction depth of only 3 or 10 channels per tap;
+    reshaping 2x2 pixel blocks into channels quarters the spatial positions
+    and 4x's the contraction depth. On the H100 under cuDNN the whole
+    6-member ensemble forward (200 images per stream, bf16) runs 92.3 ms
+    with this stem against 95.9 ms with the plain conv (PERF.md).
 
     Derivation: out(oy,ox) = sum_{ky,kx} w[ky,kx] x[2oy-3+ky, 2ox-3+kx];
     with blocks X[i,j,(a,b,c)] = x[2i+a, 2j+b, c] the tap (ky,kx) lands in
@@ -229,9 +231,7 @@ def _stem_s2d(params: Mapping, x: jax.Array) -> jax.Array:
 
 
 def _inception(params: Mapping, name: str, b: Mapping, x: jax.Array) -> jax.Array:
-    # (measured: fusing the block's 1x1 input convs into one wide conv was
-    # neutral for rgb and 20% WORSE for the flow net on v5e — XLA's own
-    # scheduling wins; keep the straightforward per-branch convs)
+    # straightforward per-branch convs: XLA and cuDNN schedule them
     branches = []
     if b["c1"]:
         branches.append(_conv(params, f"{name}/1x1", x, 1, 0, 1))
@@ -262,13 +262,11 @@ def apply(
 
     Dropout only applies when a dropout_rng is passed (training); the
     reference always runs caffe.TEST where dropout is identity
-    (calcSig_wOF.py:44-46). The blocks run on XLA's conv path by design:
-    every measured restructuring (fused Pallas block, Winograd, conv->dot,
-    int8) loses on this stack — see docs/TUNING.md roofline; the fused
-    block experiment lives in tools/inception_pallas.py."""
+    (calcSig_wOF.py:44-46). Every conv runs on XLA's conv path (cuDNN on
+    the GPU)."""
     if x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
-        y = _stem_s2d(params, x)      # same math, MXU-friendly shapes
-    else:
+        y = _stem_s2d(params, x)      # same math, deeper contraction
+    else:                             # odd sizes: the plain strided conv
         y = _conv(params, "conv1/7x7_s2", x, 7, 3, 2)
     y = max_pool(y, 3, 2, 0)
     y = _conv(params, "conv2/3x3_reduce", y, 1, 0, 1)

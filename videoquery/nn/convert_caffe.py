@@ -7,7 +7,7 @@ BN-folded parameter dict consumed by videoquery.nn.bn_inception.
 The reference extracts features with the caffe-action fork's CaffeNet over
 the UCF101 split-{1,2,3} TSN caffemodels (calcSig_wOF.py:30,44-56,
 calcSig_wOF_ensemble.sh:12-37). Those weight files are external artifacts;
-this module is the bridge that imports them into the TPU framework.
+this module is the bridge that imports them into this framework.
 
 Conversion details:
 - Caffe conv weights are [cout, cin, kh, kw]; ours are HWIO [kh, kw, cin, cout].

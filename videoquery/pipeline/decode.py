@@ -123,7 +123,7 @@ def gray_flow_grid(frames: np.ndarray, fh: int, fw: int,
       factor. 2.4x faster than direct INTER_AREA at the production geometry
       (0.063 vs 0.151 ms/frame, 340x256 -> 128x128) and the gray path is
       the largest host-producer cost; gated EPE/retrieval-equal to "area"
-      (tools/flow_quality.py --host_gray, docs/TUNING.md).
+      (tools/flow_quality.py --host_gray).
     - "area": direct cv2 INTER_AREA (the round-2 gated default).
     - "linear": cv2's 2-tap INTER_LINEAR (gated WORSE bg EPE; not
       production)."""
@@ -236,7 +236,7 @@ def load_video_parallel(path: str, new_size: tuple[int, int] | None = None,
     """Multi-worker seek-based decode -> [N, H, W, 3] BGR uint8.
 
     The reference parallelized decode across videos with a process pool
-    (build_wof_clips.py:181-184); on a many-core TPU host a SINGLE long
+    (build_wof_clips.py:181-184); on a many-core host a SINGLE long
     video must also decode in parallel to keep up with the chip (extraction
     sustains thousands of fps device-side; one cv2 thread decodes a few
     hundred). Chunked seeks are verified frame-exact against the sequential

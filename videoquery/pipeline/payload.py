@@ -24,19 +24,14 @@ log = logging.getLogger(__name__)
 
 
 def flow_grid_shape(h0: int, w0: int, flow_res_div: int) -> tuple[int, int]:
-    """(fh, fw) of the reduced flow grid for native frames of (h0, w0).
-    Heights snap to multiples of 8 (sublane tile); widths >= 128 snap down
-    to lane-tile multiples (a 170-wide grid pads to 256 lanes inside every
-    Pallas roll — 1.5x wasted VPU work; 128 is pad-free). Shared by the
-    on-device gray path (extract._flow_gray_grid) and the host-gray upload
-    path (decode.gray_flow_grid) so both produce the same program
-    geometry."""
+    """(fh, fw) of the reduced flow grid for native frames of (h0, w0):
+    each axis divided by flow_res_div (the flow values are rescaled per
+    axis back to native pixels). Shared by the on-device gray path
+    (extract._flow_gray_grid) and the host-gray upload path
+    (decode.gray_flow_grid) so both produce the same program geometry."""
     if flow_res_div <= 1:
         return h0, w0
-    fh = max(8, (h0 // flow_res_div) // 8 * 8)
-    fw0 = w0 // flow_res_div
-    fw = (fw0 // 128 * 128) if fw0 >= 128 else fw0
-    return fh, fw
+    return h0 // flow_res_div, w0 // flow_res_div
 
 
 def plan_groups(n_frames: int, cfg: ExtractionConfig, clip_numbers=None):
@@ -95,7 +90,7 @@ def build_payload(frames, gray, group, nums, cfg: ExtractionConfig,
     if cfg.host_gray:
         # compact upload: ship only the tick frames + uint8 gray at the
         # flow grid (~4x fewer bytes than all frames) — see the host_gray
-        # discussion in the Extractor docstring / docs/TUNING.md
+        # discussion in ExtractionConfig.host_gray
         fpc = cfg.frames_per_clip
         h0, w0 = frames[group[0][0] - 1].shape[:2] if not is_arr \
             else frames.shape[1:3]

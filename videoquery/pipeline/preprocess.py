@@ -53,14 +53,14 @@ def _cv2_linear_matrix(n_in: int, n_out: int) -> np.ndarray:
 def _resize(x: jax.Array, w: int, h: int) -> jax.Array:
     """Bilinear resize of [..., H, W, C] to (H=h, W=w), numerically matching
     cv2.resize(..., (w, h)) on float input (tested against a cv2 oracle in
-    tests/test_pipeline.py). Expressed as two small matmuls — MXU-friendly
-    on TPU, and separable exactly as cv2's kernel is."""
+    tests/test_pipeline.py). Expressed as two small matmuls, separable
+    exactly as cv2's kernel is."""
     h_in, w_in = x.shape[-3], x.shape[-2]
     if (h_in, w_in) == (h, w):
         return x
     ah = jnp.asarray(_cv2_linear_matrix(h_in, h))   # [h, h_in]
     aw = jnp.asarray(_cv2_linear_matrix(w_in, w))   # [w, w_in]
-    # HIGHEST: at the MXU's default bf16 matmul precision the resize would
+    # HIGHEST: at a reduced default matmul precision (TF32 on the GPU) the resize would
     # drift ~1 uint8 LSB from the cv2 oracle; these matrices are tiny, the
     # f32 pass costs nothing measurable.
     hi = jax.lax.Precision.HIGHEST

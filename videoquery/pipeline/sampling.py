@@ -64,7 +64,7 @@ def flow_pair_plan(frame_cnt: int, num_ticks: int = 25,
 
 def flow_warm_plan(pair_idx: np.ndarray, group: int = 5
                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Temporal warm-start plan over a pair list (VERDICT r2 #2).
+    """Temporal warm-start plan over a pair list.
 
     Consecutive frame pairs have highly correlated flow; instead of solving
     every pair's full TV-L1 pyramid from zero, solve a sparse set of

@@ -5,7 +5,7 @@ over (stream, split, clip) followed by per-clip ensemble averaging
 (reference ticket.py:120-163), then a per-clip weighted score
 (ticket.py:165-180). Here the whole thing is two einsums + masked reductions
 over dense arrays, so the entire search set is scored in one XLA program on
-the MXU.
+the accelerator's matrix units.
 
 Array layout (the framework-wide convention):
 
@@ -45,7 +45,7 @@ def ensemble_similarities(
     (ticket.py:124,154-160).
     """
     # One batched matvec per (stream, split): [S,K,N,D] x [S,K,D] -> [S,K,N].
-    # HIGHEST precision keeps f32 products exact on the MXU (bf16x3 passes).
+    # HIGHEST precision keeps f32 products exact (no TF32 on the GPU).
     sims = jnp.einsum(
         "sknd,skd->skn", cands, targets,
         preferred_element_type=jnp.float32,
@@ -76,8 +76,8 @@ def ensemble_similarities_batched(
 
     Bit-compatibility contract: for Q >= 2 the per-query output columns are
     bit-identical regardless of how many queries share the batch (the gemm
-    accumulates over D in a Q-independent order; measured on both the CPU
-    and TPU backends). Q == 1 lowers to a gemv with a DIFFERENT reduction
+    accumulates over D in a Q-independent order; verified on the CPU
+    backend, not yet on cuBLAS — ROADMAP D5). Q == 1 lowers to a gemv with a DIFFERENT reduction
     order — callers must pad Q to >= 2 (SearchEngine does) so sequential
     and batched serving produce identical bits.
     """

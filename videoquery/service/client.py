@@ -1,5 +1,5 @@
-"""API client speaking the reference's coreapi action surface over plain
-requests.
+"""API client speaking the reference's coreapi action surface over HTTP
+with the standard library alone (urllib).
 
 The reference drives the Video Query REST API through the (abandoned)
 coreapi dynamic-schema client: it fetches ``<url>/docs`` and addresses
@@ -17,9 +17,14 @@ api_load_records.py:115-121).
 from __future__ import annotations
 
 import functools
+import json
 import logging
 import os
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
+import uuid
 from typing import Any, Mapping, Protocol, Sequence
 
 log = logging.getLogger(__name__)
@@ -39,13 +44,89 @@ class Transport(Protocol):
     ) -> Any: ...
 
 
+class Response:
+    """Status and body of one HTTP exchange (4xx/5xx included: the API's
+    error bodies are JSON the caller may read, as with any other status)."""
+
+    def __init__(self, status_code: int, content: bytes):
+        self.status_code = status_code
+        self.content = content
+
+    def json(self) -> Any:
+        return json.loads(self.content)
+
+
+def _multipart(data: Mapping[str, Any], files: Mapping[str, Any]
+               ) -> tuple[bytes, str]:
+    """multipart/form-data body: one part per field, file objects (anything
+    with .read()) as file parts named after the object's basename."""
+    boundary = uuid.uuid4().hex
+    out = []
+    for key, val in data.items():
+        out.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                   f'name="{key}"\r\n\r\n{val}\r\n'.encode())
+    for key, f in files.items():
+        name = os.path.basename(str(getattr(f, "name", key)))
+        payload = f.read()
+        if isinstance(payload, str):
+            payload = payload.encode()
+        out.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                   f'name="{key}"; filename="{name}"\r\nContent-Type: '
+                   f'application/octet-stream\r\n\r\n'.encode())
+        out.append(payload + b"\r\n")
+    out.append(f"--{boundary}--\r\n".encode())
+    return b"".join(out), f"multipart/form-data; boundary={boundary}"
+
+
+class Session:
+    """The few HTTP calls the client needs, on urllib: persistent headers,
+    query strings, form / JSON / multipart bodies."""
+
+    def __init__(self):
+        self.headers: dict[str, str] = {}
+
+    def request(self, method: str, url: str, *, params=None, data=None,
+                json_body=None, files=None) -> Response:
+        if params:
+            query = urllib.parse.urlencode(
+                {k: v for k, v in params.items() if v is not None},
+                doseq=True)
+            url += ("&" if "?" in url else "?") + query
+        headers = dict(self.headers)
+        body = None
+        if files:
+            body, headers["Content-Type"] = _multipart(data or {}, files)
+        elif json_body is not None:
+            body = json.dumps(json_body).encode()
+            headers["Content-Type"] = "application/json"
+        elif data is not None:
+            body = urllib.parse.urlencode(data, doseq=True).encode()
+            headers["Content-Type"] = "application/x-www-form-urlencoded"
+        req = urllib.request.Request(url, data=body, headers=headers,
+                                     method=method)
+        try:
+            with urllib.request.urlopen(req) as resp:
+                return Response(resp.status, resp.read())
+        except urllib.error.HTTPError as err:
+            return Response(err.code, err.read())
+
+    def get(self, url: str) -> Response:
+        return self.request("GET", url)
+
+    def post(self, url: str, data=None) -> Response:
+        return self.request("POST", url, data=data)
+
+
+def _is_connection_error(exc: Exception) -> bool:
+    return isinstance(exc, (ConnectionError, urllib.error.URLError)) \
+        and not isinstance(exc, urllib.error.HTTPError)
+
+
 def authenticate(api_url: str, session=None):
     """POST api-token-auth/ with API_CLIENT_USERNAME/API_CLIENT_PASSWORD env
     credentials; returns the token or None on failure (reference
     authenticate.py:6-24)."""
-    import requests
-
-    session = session or requests
+    session = session or Session()
     try:
         resp = session.post(
             api_url.rstrip("/") + "/api-token-auth/",
@@ -61,15 +142,13 @@ def authenticate(api_url: str, session=None):
 
 
 class HTTPTransport:
-    """requests-backed transport with token auth and infinite connection
+    """urllib-backed transport with token auth and infinite connection
     retry."""
 
     def __init__(self, base_url: str, token: str | None = None,
                  fetch_schema: bool = True):
-        import requests
-
         self.base_url = base_url.rstrip("/") + "/"
-        self.session = requests.Session()
+        self.session = Session()
         if token is None:
             token = authenticate(self.base_url, self.session)
         if token:
@@ -84,8 +163,6 @@ class HTTPTransport:
                 log.warning("could not fetch %sdocs; continuing", self.base_url)
 
     def request(self, method, path, *, params=None, data=None, files=None):
-        import requests
-
         while True:
             try:
                 resp = self.session.request(
@@ -93,13 +170,15 @@ class HTTPTransport:
                     self.base_url + path,
                     params=params if method == "GET" else None,
                     data=data if files else None,
-                    json=data if (data is not None and not files) else None,
+                    json_body=data if (data is not None and not files) else None,
                     files=files,
                 )
                 if resp.status_code == 204 or not resp.content:
                     return None
                 return resp.json()
-            except requests.ConnectionError:
+            except Exception as exc:
+                if not _is_connection_error(exc):
+                    raise
                 time.sleep(RETRY_SLEEP_SECONDS)
                 log.warning("Try API request again: %s %s params=%s",
                             method, path, params)

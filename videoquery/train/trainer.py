@@ -3,7 +3,7 @@
 The reference delegates training to the upstream TSN project (its GPU image
 compiles MPI-enabled Caffe for multi-GPU training, reference
 src/features_GPU_compute/Dockerfile:37-53, unused by the repo's own
-scripts — SURVEY.md §2.3). This module provides the TPU-native equivalent so
+scripts — SURVEY.md §2.3). This module provides the JAX equivalent so
 new stream models (e.g. new datasets/splits) can be produced inside the
 framework: temporal-segment consensus (average the segment logits, then
 cross-entropy — the TSN recipe), SGD with momentum, dropout before
